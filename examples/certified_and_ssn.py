@@ -16,9 +16,9 @@
 
 import numpy as np
 
-from online_convex_optimization_tpu.models.exact_ftl import (
+from online_convex_optimization.models.exact_ftl import (
     ExactFTL, run_ftl_exact)
-from online_convex_optimization_tpu.data.sequences import (
+from online_convex_optimization.data.sequences import (
     make_random_iid_stream)
 
 # --- certified regime: production contract data -----------------------

@@ -6,11 +6,11 @@ and the quadratic-loss ball-constrained least-squares track.
 
 import numpy as np
 
-from online_convex_optimization_tpu.data.sequences import (
+from online_convex_optimization.data.sequences import (
     make_random_iid_stream, make_regression_stream)
-from online_convex_optimization_tpu.models.exact_ftl import (
+from online_convex_optimization.models.exact_ftl import (
     run_ftl_exact, run_ftrl)
-from online_convex_optimization_tpu.models.quadratic import simulate_quadratic
+from online_convex_optimization.models.quadratic import simulate_quadratic
 
 z, y, _ = make_random_iid_stream(run_seed=7)(80)
 exact = run_ftl_exact(z, y, norm="l2")       # all prefixes, one device ADMM

@@ -1,17 +1,18 @@
 """Batched kernel evaluation + hyperparameter sweeps.
 
 Evaluates thousands of sequences and full (eta / SMART-threshold) tuning
-grids in single device programs.  On TPU the sweeps run as Pallas kernel
-grid dimensions (no data duplication); on CPU the same APIs fall back to
-the scan (or pass use_kernel=True + interpret for the kernel code path).
+grids in single device programs.  On the GPU the sweeps run as the
+kernel grid's second axis (no data duplication); elsewhere the same APIs
+take the scan (or pass use_kernel=True + interpret=True for the kernel's
+code path in the Pallas interpreter).
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python examples/kernel_batch_sweep.py
 """
 
 import numpy as np
 
-from online_convex_optimization_tpu.data.device import random_game_batch
-from online_convex_optimization_tpu.models.sweep_api import (
+from online_convex_optimization.data.device import random_game_batch
+from online_convex_optimization.models.sweep_api import (
     ftrl_eta_sweep, smart_threshold_sweep)
 
 import jax

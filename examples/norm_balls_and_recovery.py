@@ -26,13 +26,13 @@ import jax
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 
-from online_convex_optimization_tpu.data.sequences import (  # noqa: E402
+from online_convex_optimization.data.sequences import (  # noqa: E402
     make_random_iid_stream)
-from online_convex_optimization_tpu.models.exact_ftl import ExactFTL  # noqa: E402
-from online_convex_optimization_tpu.models.linear_regime import (  # noqa: E402
+from online_convex_optimization.models.exact_ftl import ExactFTL  # noqa: E402
+from online_convex_optimization.models.linear_regime import (  # noqa: E402
     certified_prefix_actions)
-from online_convex_optimization_tpu.parallel.mesh import make_mesh  # noqa: E402
-from online_convex_optimization_tpu.parallel.sweep import (  # noqa: E402
+from online_convex_optimization.parallel.mesh import make_mesh  # noqa: E402
+from online_convex_optimization.parallel.sweep import (  # noqa: E402
     resumable_synthetic_g, sharded_synthetic_g)
 
 # --- 1) l1 ball on contract data: certified a priori ------------------
@@ -56,20 +56,20 @@ print(f"linf general data: ADMM f(40)={f(a1[40], 40):.6f}  "
       f"SSN f(40)={f(a2[40], 40):.6f}  (two solvers, one program)")
 
 # --- 2) resumable sweep: slices reproduce one-shot bitwise ------------
-def stand_in(seed, eta, *, T, lane_batch, alg_flag, interpret):
+def stand_in(seed, eta, *, T, block_seqs, alg_flag, interpret):
     key = jax.random.fold_in(jax.random.key(T),
                              jnp.asarray(seed, jnp.int32) >> 20)
-    return jax.random.uniform(key, (8, lane_batch), jnp.float32) * eta
+    return jax.random.uniform(key, (block_seqs,), jnp.float32) * eta
 
 mesh = make_mesh(1, 1)
 with tempfile.TemporaryDirectory() as tmp:
     ck = os.path.join(tmp, "g.npz")
     g_sliced = resumable_synthetic_g(
         mesh, T=32, eta_grid=[1.0, 2.0], blocks_per_device=6,
-        blocks_per_step=2, lane_batch=64, checkpoint_path=ck,
+        blocks_per_step=2, block_seqs=512, checkpoint_path=ck,
         regret_fn=stand_in)
 g_once = np.asarray(sharded_synthetic_g(
-    mesh, T=32, eta_grid=[1.0, 2.0], blocks_per_device=6, lane_batch=64,
+    mesh, T=32, eta_grid=[1.0, 2.0], blocks_per_device=6, block_seqs=512,
     regret_fn=stand_in), np.float32)
 print(f"resumable sweep  : sliced == one-shot bitwise -> "
       f"{bool((g_sliced == g_once).all())}  g={g_sliced}")

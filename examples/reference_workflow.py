@@ -9,8 +9,8 @@ SMART / SMART(empirical g) on one sequence family.
 
 import numpy as np
 
-import online_convex_optimization_tpu as oco
-from online_convex_optimization_tpu.data import CASES
+import online_convex_optimization as oco
+from online_convex_optimization.data import CASES
 
 T_GRID = (100, 200, 300)
 g_emp = oco.empirical_worst_case_thresholds(T_GRID, runs=20)

@@ -1,35 +1,46 @@
-"""Long-horizon streaming with checkpoint/resume (kernel carry chunks).
+"""Long-horizon streaming with checkpoint/resume.
 
-Feeds an arbitrarily long sequence through the game in chunks at
-near-fused-kernel speed; the O(B d) carry (with the identity statistics,
-so the comparator needs NO replay pass) checkpoints mid-run and resumes.
+Feeds an arbitrarily long sequence through the game in chunks; the O(B d)
+carry checkpoints mid-run and resumes.  On the GPU the chunks advance
+through the kernel (``StreamingKernelGame``, whose carry holds the
+identity statistics, so the comparator needs no replay pass); elsewhere
+through the XLA scan (``StreamingGame``, which replays for the
+comparator).
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python examples/streaming_long_horizon.py
 """
+
+import os
+import tempfile
 
 import numpy as np
 
 import jax
 
-from online_convex_optimization_tpu.models.streaming import (
-    StreamingKernelGame)
-from online_convex_optimization_tpu.utils.checkpointing import (
+from online_convex_optimization.models.streaming import (
+    StreamingGame, StreamingKernelGame)
+from online_convex_optimization.ops.pallas_game import use_kernels
+from online_convex_optimization.utils.checkpointing import (
     load_pytree, save_pytree)
 
 B, d, CT, N = 128, 5, 64, 8          # total horizon T = 512
-interpret = jax.default_backend() != "tpu"
-game = StreamingKernelGame(B, d, eta0=2**0.5, interpret=interpret)
+kernel = use_kernels()
+game = (StreamingKernelGame(B, d, eta0=2**0.5) if kernel
+        else StreamingGame(B, d, eta0=2**0.5))
 rng = np.random.default_rng(0)
+chunks = []
 for i in range(N):
     z = rng.normal(size=(CT, B, d)).astype(np.float32)
     z /= np.maximum(1.0, np.linalg.norm(z, axis=-1, keepdims=True))
     y = np.where(rng.random((CT, B)) < 0.5, -1.0, 1.0).astype(np.float32)
     game.feed(z, y)
+    chunks.append((z, y))
     if i == N // 2:                  # mid-run checkpoint round-trip
-        save_pytree("/tmp/example_carry.npz", game.carry_state())
-        game.resume(load_pytree("/tmp/example_carry.npz",
-                                game.carry_state()))
-res = game.result()                  # no replay pass
-print(f"T={game.t}: mean regret {np.asarray(res.regret).mean():.3f} "
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "carry.npz")
+            save_pytree(path, game.carry_state())
+            game.resume(load_pytree(path, game.carry_state()))
+res = game.result() if kernel else game.result(chunks)
+print(f"{jax.default_backend()} T={CT * N}: mean regret {np.asarray(res.regret).mean():.3f} "
       f"(cum {np.asarray(res.cum_loss).mean():.1f}, "
       f"comp {np.asarray(res.comp_loss).mean():.1f})")

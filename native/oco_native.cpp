@@ -1,4 +1,4 @@
-// Native runtime for the TPU-native OCO framework.
+// Native runtime for the online convex optimization framework.
 //
 // Two roles (SURVEY.md §2.5 — the reference's "native" layer is Numba
 // LLVM-JIT kernels plus CVXPY's C solver backends; neither exists in this
@@ -293,7 +293,7 @@ void exact_prefix_actions(const double* z, const double* y, int64_t T,
 }
 
 // Certified closed-form exact FTL — the native twin of
-// online_convex_optimization_tpu/models/linear_regime.py.  For +-1
+// online_convex_optimization/models/linear_regime.py.  For +-1
 // labels, |q - y| >= 1 - q*y with equality iff |q| <= 1, so when the
 // per-prefix certificate max_{i<=t} |<z_i, x*_t>| <= 1 holds, the linear
 // argmin x*_t (l2: w_t/||w_t||) is the EXACT unique prefix minimizer.

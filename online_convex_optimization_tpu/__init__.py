@@ -1,51 +1,46 @@
-"""TPU-native online convex optimization framework.
+"""The package's former import path, kept so existing scripts still import.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-``revvu/online_convex_optimization`` (online linear binary classification
-under the normalized hinge loss): FTL, FTRL, single-switch SMART,
-empirical-g SMART, and an exact follow-the-leader oracle, evaluated for
-cumulative regret across adversarial and stochastic sequence families.
-
-Architecture (TPU-first; see SURVEY.md for the reference layer map):
-
-- ``ops``      : fused step math (hinge loss, tie-exact subgradient, FTL /
-                 FTRL actions, ball projections) + Pallas kernels.
-- ``models``   : ``lax.scan`` algorithm simulators (FTRL/FTL/SMART/exact-FTL)
-                 with a reference-compatible functional API, plus the
-                 quadratic-loss exact-leader track and kernel-speed
-                 streaming for horizons beyond device memory.
-- ``data``     : sequence families + stream builders.  Host NumPy path uses
-                 the reference's exact PCG64 seed schedules for bitwise input
-                 parity; a ``jax.random`` device path serves pure-throughput
-                 benchmarks.
-- ``parallel`` : device mesh / shard_map scenario sweeps with psum/pmax
-                 reductions over ICI.
-- ``experiments``: config tree, empirical g(T) estimation, per-case regret
-                 evaluation, figures, structured results, checkpointing.
-- ``utils``    : stats (SEM/CI sufficient statistics), profiling, native
-                 C++ library loader.
-- ``testing``  : f64 golden reimplementation of the reference semantics
-                 (the parity oracle; the reference's Numba path is the
-                 numerical target per BASELINE.md).
+Every module name under this package resolves to the module object of the
+same name in :mod:`online_convex_optimization` (``sys.modules`` holds the
+one module under both names), so classes, jit caches and module state are
+shared.  New code imports :mod:`online_convex_optimization` directly.
 """
 
-from online_convex_optimization_tpu.models.api import (
-    simulate_alg,
-    simulate_SMART,
-    simulate_SMART_like,
-    simulate_empirical_g_SMART,
-    empirical_worst_case_thresholds,
-)
-from online_convex_optimization_tpu.models.base import RunResult
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-__version__ = "0.1.0"
+import online_convex_optimization as _target
+from online_convex_optimization import *  # noqa: F401,F403
 
-__all__ = [
-    "simulate_alg",
-    "simulate_SMART",
-    "simulate_SMART_like",
-    "simulate_empirical_g_SMART",
-    "empirical_worst_case_thresholds",
-    "RunResult",
-    "__version__",
-]
+_PREFIX = __name__ + "."
+
+
+def _real_name(alias: str) -> str:
+    return _target.__name__ + "." + alias[len(_PREFIX):]
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    def find_spec(self, fullname, path=None, target=None):
+        if (not fullname.startswith(_PREFIX)
+                or importlib.util.find_spec(_real_name(fullname)) is None):
+            return None
+        return importlib.util.spec_from_loader(fullname, self)
+
+    def create_module(self, spec):
+        return None
+
+    def exec_module(self, module):
+        # The import system returns whatever sys.modules holds under the
+        # name once this returns: the real module.
+        sys.modules[module.__name__] = importlib.import_module(
+            _real_name(module.__name__))
+
+
+# First in line: the path finder would otherwise load a second copy of a
+# submodule from the real package's directory under the old name.
+if not any(isinstance(f, _AliasFinder) for f in sys.meta_path):
+    sys.meta_path.insert(0, _AliasFinder())
+__path__ = []  # a package, so submodule imports reach the finder
+__all__ = getattr(_target, "__all__", [])

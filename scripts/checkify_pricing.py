@@ -2,15 +2,14 @@
 
 ``estimate_g(check=True)`` checkify-wraps the batched simulator so a
 NaN/inf born inside the scan surfaces as a located error instead of
-silently riding into the max reduction (``utils.debug.checked``).  The
-open question from the verdict: what does that guard COST on the g(T)
-sweep, and should ``--check`` default on off-TPU?
+silently riding into the max reduction (``utils.debug.checked``).  What
+does that guard cost on the g(T) sweep?  (``--check`` defaults on.)
 
 This probe times the hot call of the sweep — ``gt._g_for_T`` over a
 padded one-compile chunk, exactly what ``estimate_g`` runs per horizon —
-with check on/off on the current backend, and appends the measured ratio
-to BENCH_DETAILS.jsonl.  Run it once under JAX_PLATFORMS=cpu and once on
-TPU; the decision and numbers are recorded in docs/BENCHMARKS.md.
+with check on/off on the current backend and prints the measured ratio
+(appended as a JSON line to ``--out`` when given).  The pipeline's own
+dtype rule applies: x64 on the CPU, f32 on an accelerator.
 """
 
 from __future__ import annotations
@@ -28,16 +27,17 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--runs", type=int, default=200)
     parser.add_argument("--T", type=int, default=1000)
-    parser.add_argument("--out", default="BENCH_DETAILS.jsonl")
+    parser.add_argument("--out", default="",
+                        help="append the record to this JSON-lines file")
     args = parser.parse_args()
 
     import jax
 
-    from online_convex_optimization_tpu.experiments.gt import _g_for_T
-    from online_convex_optimization_tpu.utils.logging_utils import log_metrics
+    from online_convex_optimization.experiments.gt import _g_for_T
+    from online_convex_optimization.utils.logging_utils import log_metrics
 
     backend = jax.default_backend()
-    dtype = np.float32 if backend == "tpu" else np.float64
+    dtype = np.float64 if backend == "cpu" else np.float32
 
     timings = {}
     for check in (False, True):
@@ -63,7 +63,8 @@ def main():
                    f"host sequence generation included, as in the sweep)",
            "backend": backend}
     print(rec)
-    log_metrics(args.out, rec)
+    if args.out:
+        log_metrics(args.out, rec)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 Used for the round-5 transfer-pipeline changes (double-buffered uploads,
 on-device chunk duplication, pipelined g sweep): the claim is that the
 statistics are BIT-identical to the committed artifact — only wall time
-and relay telemetry may differ.  Exits nonzero and prints the first
+and device/compile telemetry may differ.  Exits nonzero and prints the first
 mismatch otherwise.
 
 Usage: python scripts/compare_results.py results/results.json /tmp/new/results.json

@@ -1,10 +1,8 @@
-"""Decompose the f32 SSN certificate's 31x wall (VERDICT r4 task 6).
+"""Decompose the f32 SSN certificate's wall time across its knobs.
 
-The round-4 measurement (`ssn_onchip_probe.py`): SSN f32 with the
-multi-candidate compensated certificate runs 34.8 s vs 1.1 s warm banded
-ADMM at T=1024/B=8.  Before optimizing (or closing the axis), this probe
-attributes the wall across the certificate knobs by re-timing the SAME
-band solve with each knob dialed down, fresh-traced per config:
+This probe attributes the wall of the f32 SSN band solve (T=1024, B=8,
+`ssn_onchip_probe.py`'s batch) across the certificate knobs by re-timing
+the SAME band solve with each knob dialed down, fresh-traced per config:
 
   default      : production constants
   cert_1x      : _CERT_EVERY=200 — certificate evaluated once, newton
@@ -14,7 +12,8 @@ band solve with each knob dialed down, fresh-traced per config:
                  refinement share
   inner_1      : 1 fixed-mu inner step per rung instead of 4
 
-Appends `ssn_cert_decomp_*` wall records to BENCH_DETAILS.jsonl.
+Prints `ssn_cert_decomp_*` wall records (appended to ``--out`` when
+given).
 """
 
 from __future__ import annotations
@@ -33,14 +32,15 @@ def main():
     parser.add_argument("--T", type=int, default=1024)
     parser.add_argument("--B", type=int, default=8)
     parser.add_argument("--band", type=int, default=256)
-    parser.add_argument("--out", default="BENCH_DETAILS.jsonl")
+    parser.add_argument("--out", default="",
+                        help="append the records to this JSON-lines file")
     args = parser.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    import online_convex_optimization_tpu.models.ssn as ssn
-    from online_convex_optimization_tpu.utils.logging_utils import log_metrics
+    import online_convex_optimization.models.ssn as ssn
+    from online_convex_optimization.utils.logging_utils import log_metrics
 
     rng = np.random.default_rng(0)
     z = 2.0 * rng.normal(size=(args.B, args.T, 5)).astype(np.float32)
@@ -91,7 +91,8 @@ def main():
                         f"{frac:.3f} knobs={knobs}"),
                "backend": jax.default_backend()}
         print(rec)
-        log_metrics(args.out, rec)
+        if args.out:
+            log_metrics(args.out, rec)
     for k, v in defaults.items():
         setattr(ssn, k, v)
 

@@ -1,20 +1,17 @@
-"""On-chip f32 SSN vs warm banded ADMM at T=1024 (VERDICT round-3 task 1).
+"""Device f32 SSN vs warm banded ADMM at T=1024.
 
-Round 3's measured state (docs/BENCHMARKS.md): banded f32 SSN on TPU ran
-0.13 s vs the warm ADMM's 0.32 s but left 16% of prefixes uncertified,
-so the ADMM stayed the f32 production fallback.  Round 4 rebuilt the f32
-certificate (multi-candidate refined duality gap over compensated
-double-word dots, ops/df32.py); this probe re-runs the SAME comparison
-with the production band programs (`experiments.evaluate._band_programs`,
-i.e. exactly what evaluate_stream_exact dispatches) on a hard
-out-of-contract batch:
+The f32 SSN certificate is a multi-candidate refined duality gap over
+compensated double-word dots (ops/df32.py).  This probe compares it with
+the production band programs (`experiments.evaluate._band_programs`, i.e.
+exactly what evaluate_stream_exact dispatches) on a hard out-of-contract
+batch:
 
   - certified fraction at the production fail_tol 2e-4 (SSN f32),
   - warm best-of-3 wall for the SSN f32 band program vs the banded ADMM.
 
-Appends `ssn_f32_certified_frac_T1024` and the two wall records to
-BENCH_DETAILS.jsonl.  Works on any backend; the headline numbers are the
-TPU ones.
+Prints `ssn_f32_certified_frac_T1024` and the two wall records (appended
+to ``--out`` when given).  Works on any backend; record the device with
+any number kept.
 """
 
 from __future__ import annotations
@@ -41,15 +38,16 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--T", type=int, default=1024)
     parser.add_argument("--B", type=int, default=8)
-    parser.add_argument("--out", default="BENCH_DETAILS.jsonl")
+    parser.add_argument("--out", default="",
+                        help="append the records to this JSON-lines file")
     args = parser.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.experiments.evaluate import (
         _band_programs)
-    from online_convex_optimization_tpu.utils.logging_utils import log_metrics
+    from online_convex_optimization.utils.logging_utils import log_metrics
 
     backend = jax.default_backend()
     z, y = _hard_batch(args.B, args.T)
@@ -95,7 +93,8 @@ def main():
     for r in records:
         r["backend"] = backend
         print(r)
-        log_metrics(args.out, r)
+        if args.out:
+            log_metrics(args.out, r)
 
 
 if __name__ == "__main__":

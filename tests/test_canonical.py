@@ -7,13 +7,13 @@ construction (VERDICT round-2 task 2; docs/DESIGN.md)."""
 import numpy as np
 import pytest
 
-from online_convex_optimization_tpu.data.sequences import CASES
-from online_convex_optimization_tpu.models.canonical import (
+from online_convex_optimization.data.sequences import CASES
+from online_convex_optimization.models.canonical import (
     canonical_prefix_actions,
     canonicalize,
 )
-from online_convex_optimization_tpu.models.exact_ftl import ExactFTL
-from online_convex_optimization_tpu.models.polish import objective
+from online_convex_optimization.models.exact_ftl import ExactFTL
+from online_convex_optimization.models.polish import objective
 
 
 def test_slab_flat_canonicalizes_to_zero():
@@ -137,7 +137,7 @@ def test_evaluate_selection_canonical_dedups_deterministic(tmp_path):
     """selection='canonical' routes the deterministic families through
     the host-side canonical path (audit: cells_canonical) — no device
     solver — and produces finite stats."""
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.experiments.evaluate import (
         evaluate_stream_exact)
 
     audit = {}

@@ -25,9 +25,9 @@ import pytest
 
 cp = pytest.importorskip("cvxpy")
 
-from online_convex_optimization_tpu.data.sequences import CASES
-from online_convex_optimization_tpu.models.exact_ftl import ExactFTL
-from online_convex_optimization_tpu.models.polish import objective
+from online_convex_optimization.data.sequences import CASES
+from online_convex_optimization.models.exact_ftl import ExactFTL
+from online_convex_optimization.models.polish import objective
 
 T_CHECK = 200
 PREFIXES = tuple(range(10, T_CHECK + 1, 10))

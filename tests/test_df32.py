@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from online_convex_optimization_tpu.ops import df32
+from online_convex_optimization.ops import df32
 
 
 def _rng(seed=0):

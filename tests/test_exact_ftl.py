@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog, minimize
 
-from online_convex_optimization_tpu.models.exact_ftl import (
+from online_convex_optimization.models.exact_ftl import (
     ExactFTL,
     replay_exact_ftl,
     run_ftl_exact,
@@ -209,49 +209,12 @@ def test_bad_shapes_raise():
         ExactFTL(d=3, T_max=20).prefix_actions(z, y)  # wrong d
 
 
-@pytest.mark.parametrize("norm", ["linf", "l2"])
-def test_fast_iter_precision_same_accuracy(norm):
-    """iter_precision="high" (bf16x3 MXU iterates on TPU) must not change
-    the POLISHED solution quality: the HIGHEST-precision residual check
-    plus the host active-set polish absorb the iterate noise.  On CPU the
-    precision flag is a no-op, so this asserts the wiring + the contract;
-    the TPU-gated twin below asserts the numerics on real hardware."""
-    z, y = _instance(T=50, seed=11)
-    ref = ExactFTL(d=5, T_max=50, norm=norm, iters=6000, rho=3.0,
-                   allow_linear=False)
-    fast = ExactFTL(d=5, T_max=50, norm=norm, iters=6000, rho=3.0,
-                    iter_precision="high", allow_linear=False)
-    a_ref = ref.prefix_actions(z, y)
-    a_fast = fast.prefix_actions(z, y)
-    for p in (1, 10, 25, 50):
-        assert _obj(z[:p], y[:p], a_fast[p]) <= \
-            _obj(z[:p], y[:p], a_ref[p]) + 1e-8, p
-    x_fast = fast.solve_full(z, y)
-    x_ref = ref.solve_full(z, y)
-    assert _obj(z, y, x_fast) == pytest.approx(_obj(z, y, x_ref), abs=1e-8)
-
-
-@pytest.mark.requires_tpu
-@pytest.mark.parametrize("norm", ["linf", "l1"])
-def test_fast_iter_precision_matches_highs_on_tpu(norm):
-    """On real TPU hardware, bf16x3 ADMM iterates + HIGHEST residuals +
-    host polish still reach the interior-point bar (1e-8 vs HiGHS)."""
-    z, y = _instance(T=40, seed=8)
-    solver = ExactFTL(d=5, T_max=40, norm=norm, iters=6000, rho=3.0,
-                      iter_precision="high", allow_linear=False)
-    actions = solver.prefix_actions(z, y)
-    for p in range(10, 41, 10):
-        obj_p = _obj(z[:p], y[:p], actions[p])
-        obj_lp = _obj(z[:p], y[:p], _lp_solve(z[:p], y[:p], norm))
-        assert obj_p <= obj_lp + 1e-8, p
-
-
 def test_admm_state_continuation_equals_longer_run():
     """state0 continuation is EXACTLY a longer run (the iteration is
     Markov in the state) — the warm-escalation paths rely on this."""
     import jax.numpy as jnp
 
-    from online_convex_optimization_tpu.models.exact_ftl import (
+    from online_convex_optimization.models.exact_ftl import (
         _admm_all_prefixes,
         _admm_full,
     )
@@ -277,7 +240,7 @@ def test_admm_banded_matches_full():
     assembled banded solution must match the full-batch solve."""
     import jax.numpy as jnp
 
-    from online_convex_optimization_tpu.models.exact_ftl import (
+    from online_convex_optimization.models.exact_ftl import (
         _admm_all_prefixes)
 
     z, y = _instance(T=60, seed=15)

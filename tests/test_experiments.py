@@ -12,21 +12,21 @@ import os
 import numpy as np
 import pytest
 
-from online_convex_optimization_tpu.data.sequences import CASES
-from online_convex_optimization_tpu.experiments.config import (
+from online_convex_optimization.data.sequences import CASES
+from online_convex_optimization.experiments.config import (
     ExperimentConfig,
     config_from_args,
 )
-from online_convex_optimization_tpu.experiments.evaluate import (
+from online_convex_optimization.experiments.evaluate import (
     evaluate_stream_with_stats,
 )
-from online_convex_optimization_tpu.experiments.gt import estimate_g
-from online_convex_optimization_tpu.testing.golden import (
+from online_convex_optimization.experiments.gt import estimate_g
+from online_convex_optimization.testing.golden import (
     golden_empirical_thresholds,
     golden_simulate_alg,
     golden_simulate_smart,
 )
-from online_convex_optimization_tpu.data.rng import run_seed_schedule
+from online_convex_optimization.data.rng import run_seed_schedule
 
 
 def test_estimate_g_matches_golden(tmp_path):
@@ -60,7 +60,7 @@ def test_evaluate_matches_reference_loop_aggregation():
         progress=False)
 
     # Reference-style loops over the golden oracle.
-    from online_convex_optimization_tpu.utils.stats import mean_ci
+    from online_convex_optimization.utils.stats import mean_ci
     by_T = {k: [[] for _ in T_grid] for k in ("FTRL", "FTL", "SMART", "EMP")}
     for run in range(runs):
         sampler = builder(run_seed=run_seed_schedule(0, run))
@@ -85,7 +85,7 @@ def test_evaluate_matches_reference_loop_aggregation():
 
 
 def test_driver_end_to_end(tmp_path):
-    from online_convex_optimization_tpu.experiments.driver import run_experiment
+    from online_convex_optimization.experiments.driver import run_experiment
     cfg = ExperimentConfig(t_min=50, t_max=100, t_step=50, g_runs=5,
                            runs_override=2, replicates_override=2,
                            out_dir=str(tmp_path), dpi=60)
@@ -96,10 +96,38 @@ def test_driver_end_to_end(tmp_path):
     assert os.path.exists(tmp_path / "algorithm_comparison.png")
 
 
+def test_driver_without_matplotlib(tmp_path, monkeypatch):
+    """matplotlib is optional: without it the driver writes the JSON
+    results, logs that the figures were skipped, and succeeds."""
+    import logging
+
+    from online_convex_optimization.experiments import plotting
+    from online_convex_optimization.experiments.driver import run_experiment
+    from online_convex_optimization.utils.logging_utils import get_logger
+    monkeypatch.setattr(plotting, "pyplot", lambda: None)
+    seen = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda rec: seen.append(rec.getMessage())
+    get_logger().addHandler(handler)
+    cfg = ExperimentConfig(t_min=50, t_max=50, t_step=50, g_runs=3,
+                           runs_override=1, replicates_override=1,
+                           out_dir=str(tmp_path))
+    try:
+        results = run_experiment(cfg)
+    finally:
+        get_logger().removeHandler(handler)
+    assert set(results["stats"]) == set(CASES)
+    assert os.path.exists(tmp_path / "results.json")
+    assert not list(tmp_path.glob("*.png"))
+    assert sum("skipped figure" in m for m in seen) == 2
+    assert results["device"]["platform"] == "cpu"
+    assert results["device"]["device_count"] >= 1
+
+
 def test_exact_driver_end_to_end(tmp_path):
     """--exact pipeline (exact_ftl_driver.py:268-293 equivalent) produces
     the reference's artifact set at small shapes."""
-    from online_convex_optimization_tpu.experiments.driver import run_experiment
+    from online_convex_optimization.experiments.driver import run_experiment
     cfg = ExperimentConfig(t_min=40, t_max=80, t_step=40, g_runs=4,
                            runs_override=2, replicates_override=2,
                            exact=True, exact_iters=1200,
@@ -125,16 +153,12 @@ def test_config_cli_round_trip():
 
 
 def test_check_default_resolves_by_backend():
-    """--check defaults on off-TPU / off on TPU (measured pricing in
-    docs/BENCHMARKS.md); explicit flags override both ways."""
-    import jax
-
-    cfg = config_from_args([])
-    assert cfg.check is None
-    on_tpu = jax.default_backend() == "tpu"
-    assert cfg.resolved_check() == (not on_tpu)
-    assert config_from_args(["--check"]).resolved_check() is True
-    assert config_from_args(["--no-check"]).resolved_check() is False
+    """--check defaults on, on every backend; explicit flags override
+    both ways."""
+    assert config_from_args([]).check is True
+    assert ExperimentConfig().check is True
+    assert config_from_args(["--check"]).check is True
+    assert config_from_args(["--no-check"]).check is False
 
 
 def test_deterministic_families_route_to_golden_f64():
@@ -142,11 +166,11 @@ def test_deterministic_families_route_to_golden_f64():
     must be evaluated by the f64 golden oracle, matching it exactly."""
     import math
 
-    from online_convex_optimization_tpu.data.sequences import CASES
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.data.sequences import CASES
+    from online_convex_optimization.experiments.evaluate import (
         evaluate_stream_with_stats,
     )
-    from online_convex_optimization_tpu.testing.golden import (
+    from online_convex_optimization.testing.golden import (
         golden_simulate_alg,
     )
 
@@ -165,7 +189,7 @@ def test_deterministic_families_route_to_golden_f64():
 def test_g_padding_is_inert():
     """Zero-padding horizons to a shared shape (one compile for the whole
     T grid) must not change g(T)."""
-    from online_convex_optimization_tpu.experiments.gt import _g_for_T
+    from online_convex_optimization.experiments.gt import _g_for_T
 
     a = _g_for_T(60, runs=6, base_seed=0, eta0=1.4, dtype=np.float64,
                  chunk=8)
@@ -176,23 +200,23 @@ def test_g_padding_is_inert():
     assert a == pytest.approx(b, abs=1e-12)
 
 
-def test_config_admm_precision_cli_and_cache_key():
-    cfg = config_from_args(["--exact", "--exact-admm-precision", "high"])
-    assert cfg.exact_admm_precision == "high"
+@pytest.mark.parametrize("knob", [["--exact-iters", "500"],
+                                  ["--norm", "linf"],
+                                  ["--exact-solver", "xla"]])
+def test_config_exact_knobs_cache_key(knob):
+    cfg = config_from_args(["--exact", *knob])
     base = config_from_args(["--exact"])
-    assert base.exact_admm_precision == "highest"
     # The knob changes the exact solves, so it must change the cache key.
     assert cfg.g_cache_key() != base.g_cache_key()
     # ...but only in exact mode (the plain pipeline never touches it).
-    a = config_from_args(["--exact-admm-precision", "high"])
-    b = config_from_args([])
-    assert a.g_cache_key() == b.g_cache_key()
+    assert (config_from_args(knob).g_cache_key()
+            == config_from_args([]).g_cache_key())
 
 
 def test_estimate_g_exact_cache_resume(tmp_path):
     """Partial exact-g tables resume from the JSON artifact: already-
     computed horizons are not re-solved (exact twin of the plain test)."""
-    from online_convex_optimization_tpu.experiments.gt import estimate_g_exact
+    from online_convex_optimization.experiments.gt import estimate_g_exact
 
     cache = str(tmp_path / "g_exact.json")
     g1 = estimate_g_exact([30], runs=3, base_seed=0, iters=800,
@@ -212,7 +236,7 @@ def test_warm_exact_fallback_compiles_the_band_program():
     """The driver's prewarm thread target must trace + run the fallback
     band program without error for both banding regimes (T >= 512 banded,
     small-T unbanded); an all-zero problem converges immediately."""
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.experiments.evaluate import (
         warm_exact_fallback)
     warm_exact_fallback(40, norm="l2", iters=50, dtype=np.float64)
     warm_exact_fallback(520, norm="l2", iters=50, dtype=np.float64)
@@ -224,7 +248,7 @@ def test_g_cache_provenance_guard(tmp_path):
     silently mixing maxima from incompatible sweeps."""
     import json
 
-    from online_convex_optimization_tpu.experiments.gt import estimate_g
+    from online_convex_optimization.experiments.gt import estimate_g
 
     path = str(tmp_path / "g.json")
     g1 = estimate_g([10], runs=3, base_seed=0, cache_path=path,
@@ -258,8 +282,8 @@ def test_exact_audit_counts(tmp_path):
     exact evaluator reports how each cell was solved.  A contract stream
     certifies everywhere; an out-of-contract stream routes to the
     general solver (ssn under 'auto'); counts must be complete."""
-    from online_convex_optimization_tpu.data.sequences import CASES
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.data.sequences import CASES
+    from online_convex_optimization.experiments.evaluate import (
         evaluate_stream_exact)
 
     builder = dict(CASES)["Random i.i.d. (separable)"]
@@ -292,16 +316,16 @@ def test_eval_chunk_program_matches_host_concat_formulation():
     be arithmetically IDENTICAL to the pre-r5 host-concatenate loop: the
     chunk program invokes the same two jitted simulators, so outputs are
     bit-equal.  (Merging both sims into one jit was measured to drift
-    f32 reduction order ~1 ulp on TPU and is forbidden — this test pins
+    f32 reduction order ~1 ulp on an accelerator and is forbidden — this test pins
     the formulation.)"""
     import jax
     import numpy as np
 
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.experiments.evaluate import (
         _eval_chunk_on_device)
-    from online_convex_optimization_tpu.models.linear import (
+    from online_convex_optimization.models.linear import (
         simulate_linear_batch)
-    from online_convex_optimization_tpu.models.smart import (
+    from online_convex_optimization.models.smart import (
         simulate_smart_batch)
 
     rng = np.random.default_rng(8)

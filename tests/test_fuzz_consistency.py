@@ -15,8 +15,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from online_convex_optimization_tpu.models.linear import simulate_linear_batch
-from online_convex_optimization_tpu.models.smart import simulate_smart_batch
+from online_convex_optimization.models.linear import simulate_linear_batch
+from online_convex_optimization.models.smart import simulate_smart_batch
 
 
 def _case(rng, B, T, d):
@@ -28,7 +28,7 @@ def _case(rng, B, T, d):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_fuzz_fused_kernel_vs_scan(seed):
-    from online_convex_optimization_tpu.ops.pallas_game import (
+    from online_convex_optimization.ops.pallas_game import (
         pack_per_seq, pack_sequences, regrets_fused, unpack_result)
 
     rng = np.random.default_rng(100 + seed)
@@ -44,7 +44,7 @@ def test_fuzz_fused_kernel_vs_scan(seed):
     z_pack, y_pack, _ = pack_sequences(jnp.asarray(z), jnp.asarray(y), dtype)
     if alg == 0 and rng.random() < 0.5:
         etas = rng.uniform(0.2, 3.0, B).astype(np.float32)
-        eta_arg = pack_per_seq(jnp.asarray(etas), z_pack.shape[2])
+        eta_arg = pack_per_seq(jnp.asarray(etas))
         want = simulate_linear_batch(jnp.asarray(z), jnp.asarray(y), 0,
                                      jnp.asarray(etas)).regret
     else:
@@ -64,7 +64,7 @@ def test_fuzz_fused_kernel_vs_scan(seed):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_fuzz_smart_kernel_vs_scan(seed):
-    from online_convex_optimization_tpu.ops.pallas_smart import (
+    from online_convex_optimization.ops.pallas_smart import (
         simulate_smart_pallas)
 
     rng = np.random.default_rng(200 + seed)
@@ -86,7 +86,7 @@ def test_fuzz_smart_kernel_vs_scan(seed):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_fuzz_streaming_vs_oneshot(seed):
-    from online_convex_optimization_tpu.models.streaming import (
+    from online_convex_optimization.models.streaming import (
         StreamingKernelGame)
 
     rng = np.random.default_rng(300 + seed)
@@ -114,7 +114,7 @@ def test_fuzz_streaming_vs_oneshot(seed):
 def test_fuzz_padded_tails_inert_everywhere(seed):
     """Random tail padding must be inert in the fused kernel AND the
     SMART kernel (zero rows are loss/gradient/statistics-neutral)."""
-    from online_convex_optimization_tpu.ops.pallas_game import (
+    from online_convex_optimization.ops.pallas_game import (
         pack_sequences, regrets_fused, unpack_result)
 
     rng = np.random.default_rng(400 + seed)

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog, minimize
 
-from online_convex_optimization_tpu.models.exact_ftl import ExactFTL
-from online_convex_optimization_tpu.models.linear_regime import (
+from online_convex_optimization.models.exact_ftl import ExactFTL
+from online_convex_optimization.models.linear_regime import (
     certified_full_solution,
     certified_full_solution_batch,
     certified_prefix_actions,
@@ -129,7 +129,7 @@ def test_nonl2_violation_masks_match_dense_reference(norm):
     task 4) must flag EXACTLY the prefixes the old dense (B, T, T)
     prediction matrix flagged, on data mixing certifying and violating
     rows."""
-    from online_convex_optimization_tpu.models.linear_regime import (
+    from online_convex_optimization.models.linear_regime import (
         _CERT_SLACK, _l1_certificate_violations,
         _linf_certificate_violations, _linear_argmin)
 
@@ -214,7 +214,7 @@ def test_rejects_zero_w_prefixes():
     argmin is non-unique there, so the fast path must decline (replayed
     trajectories are selection-dependent; the general solver keeps the
     reference-matching selection)."""
-    from online_convex_optimization_tpu.data.sequences import flip_sequence
+    from online_convex_optimization.data.sequences import flip_sequence
     z, y, _ = flip_sequence(20, dtype=np.float64)
     assert certified_prefix_actions(z, y, "l2") is None
 
@@ -262,8 +262,8 @@ def test_append_row_certified_and_fallback_composition():
 def test_evaluate_stream_exact_auto_matches_xla():
     """solver='auto' (certified fast path) reproduces solver='xla'
     (general ADMM + polish) statistics on a random contract family."""
-    from online_convex_optimization_tpu.data.sequences import CASES
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.data.sequences import CASES
+    from online_convex_optimization.experiments.evaluate import (
         evaluate_stream_exact)
 
     builder = dict(CASES)["Random i.i.d. (separable)"]
@@ -279,8 +279,8 @@ def test_evaluate_stream_exact_auto_matches_xla():
 def test_evaluate_stream_exact_linear_requires_certificate():
     """solver='linear' on a w=0 deterministic family must raise; on
     contract data it must succeed without any device solve."""
-    from online_convex_optimization_tpu.data.sequences import CASES
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.data.sequences import CASES
+    from online_convex_optimization.experiments.evaluate import (
         evaluate_stream_exact)
 
     flip = dict(CASES)["Label flips"]
@@ -298,8 +298,8 @@ def test_evaluate_stream_exact_linear_requires_certificate():
 def test_evaluate_stream_exact_auto_falls_back_on_deterministic():
     """auto on the flip family (w=0 prefixes) must take the general path
     and agree with forced-xla exactly."""
-    from online_convex_optimization_tpu.data.sequences import CASES
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.data.sequences import CASES
+    from online_convex_optimization.experiments.evaluate import (
         evaluate_stream_exact)
 
     flip = dict(CASES)["Label flips"]
@@ -312,7 +312,7 @@ def test_evaluate_stream_exact_auto_falls_back_on_deterministic():
 
 
 def test_estimate_g_exact_auto_matches_general(tmp_path):
-    from online_convex_optimization_tpu.experiments.gt import estimate_g_exact
+    from online_convex_optimization.experiments.gt import estimate_g_exact
 
     g_a = estimate_g_exact([30, 50], runs=4, base_seed=0, iters=1500,
                            solver="auto", progress=False)
@@ -330,7 +330,7 @@ def test_device_generated_data_is_a_priori_certified():
     certified-exact FTL minimizers."""
     import jax
 
-    from online_convex_optimization_tpu.data.device import (
+    from online_convex_optimization.data.device import (
         random_game_batch,
         separable_stream_batch,
     )
@@ -347,8 +347,8 @@ def test_exact_ftl_equals_plain_ftl_on_contract_data():
     """THE theorem, end to end: on certified data the exact-FTL trajectory
     IS linearized FTL (x*_t = w_t/||w_t||), so the replayed exact-FTL
     regret equals the plain FTL regret (golden f64 oracle)."""
-    from online_convex_optimization_tpu.models.exact_ftl import run_ftl_exact
-    from online_convex_optimization_tpu.testing.golden import (
+    from online_convex_optimization.models.exact_ftl import run_ftl_exact
+    from online_convex_optimization.testing.golden import (
         golden_simulate_alg)
 
     z, y = _contract_instance(T=80, seed=12)

@@ -11,12 +11,12 @@ import math
 import numpy as np
 import pytest
 
-from online_convex_optimization_tpu.data.sequences import sample_g_batch
-from online_convex_optimization_tpu.testing.golden import (
+from online_convex_optimization.data.sequences import sample_g_batch
+from online_convex_optimization.testing.golden import (
     golden_simulate_alg,
     golden_simulate_smart,
 )
-from online_convex_optimization_tpu.utils import native
+from online_convex_optimization.utils import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
@@ -56,7 +56,7 @@ def test_smart_matches_golden(batch, thresh):
 
 def test_alg_matches_jax_scan(batch):
     """Three-way agreement: C++ golden == JAX x64 scan to 1e-6."""
-    from online_convex_optimization_tpu.models.linear import simulate_linear_batch
+    from online_convex_optimization.models.linear import simulate_linear_batch
     z, y = batch
     got = native.simulate_alg_batch(z, y, 0, ETA0)
     jx = np.asarray(simulate_linear_batch(z, y, 0, ETA0).regret)
@@ -65,7 +65,7 @@ def test_alg_matches_jax_scan(batch):
 
 def test_exact_prefix_actions_cross_validates_device_admm(batch):
     """C++ warm-started per-prefix ADMM vs the batched device ADMM."""
-    from online_convex_optimization_tpu.models.exact_ftl import ExactFTL
+    from online_convex_optimization.models.exact_ftl import ExactFTL
     z, y = batch
     z1, y1 = z[0][:60], y[0][:60]
     native_actions = native.exact_prefix_actions(z1, y1, norm="l2",
@@ -133,7 +133,7 @@ def test_exact_prefix_l1_matches_lp(batch):
 def test_certified_prefix_actions_matches_python_twin(batch):
     """Native certified closed form == models/linear_regime (both exact:
     equality to f64 rounding), and declines out-of-contract data."""
-    from online_convex_optimization_tpu.models.linear_regime import (
+    from online_convex_optimization.models.linear_regime import (
         certified_prefix_actions)
     z, y = batch
     # Strictly re-clip in f64 so every prefix certifies a priori.

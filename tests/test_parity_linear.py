@@ -11,16 +11,16 @@ import math
 import numpy as np
 import pytest
 
-from online_convex_optimization_tpu import simulate_alg
-from online_convex_optimization_tpu.data.sequences import (
+from online_convex_optimization import simulate_alg
+from online_convex_optimization.data.sequences import (
     flip_sequence,
     make_noisy_iid_stream,
     make_random_iid_stream,
     sample_g_instance,
     switching_two_leaders_sequence,
 )
-from online_convex_optimization_tpu.models.linear import simulate_linear_batch
-from online_convex_optimization_tpu.testing.golden import golden_simulate_alg
+from online_convex_optimization.models.linear import simulate_linear_batch
+from online_convex_optimization.testing.golden import golden_simulate_alg
 
 ETA0 = math.sqrt(2)
 TOL = 1e-6
@@ -90,7 +90,7 @@ def test_tie_subgradient_is_exactly_zero():
     # First round: theta = 0 => x = 0 => q = 0; craft y_0 = 0 impossible
     # (y in ±1), so instead use a z row of zeros: q = 0 = y? Use direct op.
     import jax.numpy as jnp
-    from online_convex_optimization_tpu.ops.hinge import hinge_subgradient
+    from online_convex_optimization.ops.hinge import hinge_subgradient
     assert float(hinge_subgradient(jnp.float64(1.0), jnp.float64(1.0))) == 0.0
     assert float(hinge_subgradient(jnp.float64(2.0), jnp.float64(1.0))) == 0.5
     assert float(hinge_subgradient(jnp.float64(0.0), jnp.float64(1.0))) == -0.5
@@ -99,7 +99,7 @@ def test_tie_subgradient_is_exactly_zero():
 def test_ftrl_projection_boundary():
     """Projection triggers strictly when ||x||^2 > 1 (fast_algorithms.py:52-66)."""
     import jax.numpy as jnp
-    from online_convex_optimization_tpu.ops.actions import ftrl_action
+    from online_convex_optimization.ops.actions import ftrl_action
     theta = jnp.array([-1.0, 0.0, 0.0], dtype=jnp.float64)
     # t=1, eta0=1: x = theta * -1 = e1, norm exactly 1 -> untouched.
     x = ftrl_action(theta, 1.0, 1.0)

@@ -10,16 +10,16 @@ import math
 import numpy as np
 import pytest
 
-from online_convex_optimization_tpu import simulate_SMART, simulate_SMART_like
-from online_convex_optimization_tpu.data.sequences import (
+from online_convex_optimization import simulate_SMART, simulate_SMART_like
+from online_convex_optimization.data.sequences import (
     flip_sequence,
     make_noisy_iid_stream,
     make_random_iid_stream,
     sample_g_instance,
     switching_two_leaders_sequence,
 )
-from online_convex_optimization_tpu.models.smart import simulate_smart, simulate_smart_batch
-from online_convex_optimization_tpu.testing.golden import golden_simulate_smart
+from online_convex_optimization.models.smart import simulate_smart, simulate_smart_batch
+from online_convex_optimization.testing.golden import golden_simulate_smart
 
 ETA0 = math.sqrt(2)
 TOL = 1e-6

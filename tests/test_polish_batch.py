@@ -11,7 +11,7 @@ and the never-loses contract against the raw (unpolished) input.
 import numpy as np
 import pytest
 
-from online_convex_optimization_tpu.models.polish import (
+from online_convex_optimization.models.polish import (
     _polish_prefix_actions_loop,
     objective,
     polish_prefix_actions,

@@ -12,9 +12,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from online_convex_optimization_tpu.data.sequences import CASES
-from online_convex_optimization_tpu.models.linear import simulate_linear_batch
-from online_convex_optimization_tpu.models.smart import simulate_smart_batch
+from online_convex_optimization.data.sequences import CASES
+from online_convex_optimization.models.linear import simulate_linear_batch
+from online_convex_optimization.models.smart import simulate_smart_batch
 
 
 def _random_batch(B, T, seed=0):

@@ -11,7 +11,7 @@ from scipy.optimize import minimize
 
 import jax.numpy as jnp
 
-from online_convex_optimization_tpu.models.quadratic import (
+from online_convex_optimization.models.quadratic import (
     ball_ls_action,
     quadratic_comparator_loss,
     simulate_quadratic,
@@ -116,7 +116,7 @@ def test_batch_matches_single_and_ftl_beats_ftrl_on_easy_data():
 
 def test_single_sequence_T1e4_cpu_runnable():
     """BASELINE config 1 shape: one sequence, T = 10^4, CPU."""
-    from online_convex_optimization_tpu.data.sequences import (
+    from online_convex_optimization.data.sequences import (
         make_regression_stream)
     sampler = make_regression_stream(sigma=0.1, run_seed=2025)
     z, y, u = sampler(10_000)
@@ -129,7 +129,7 @@ def test_single_sequence_T1e4_cpu_runnable():
 
 
 def test_regression_stream_contract():
-    from online_convex_optimization_tpu.data.sequences import (
+    from online_convex_optimization.data.sequences import (
         make_regression_stream)
     s = make_regression_stream(sigma=0.2, run_seed=7)
     z, y, u = s(256, rep=3)
@@ -140,98 +140,64 @@ def test_regression_stream_contract():
 
 
 @pytest.mark.parametrize("t", [1, 3, 8, 40])
-def test_trs_kernel_matches_xla_solver(t):
-    """Register-resident Pallas bisection == the XLA formulation on every
-    prefix size (including singular t < d systems)."""
-    from online_convex_optimization_tpu.ops.pallas_trs import (
-        ball_ls_action_pallas)
+def test_ball_ls_f32_matches_f64_solver(t):
+    """The XLA trust-region bisection in f32 (the device precision) ==
+    the f64 solve on every prefix size (including singular t < d
+    systems): objectives always, vectors on full-rank prefixes."""
     z, y = _instance(T=40, seed=5)
-    zp = z[:t].astype(np.float32)
-    yp = y[:t].astype(np.float32)
-    A = jnp.asarray(zp.T @ zp)[None]
-    b = jnp.asarray(zp.T @ yp)[None]
-    got = np.asarray(ball_ls_action_pallas(A, b, interpret=True))[0]
-    want = np.asarray(ball_ls_action(A.astype(jnp.float32),
-                                     b.astype(jnp.float32)))[0]
+    zp, yp = z[:t], y[:t]
+    A = zp.T @ zp
+    b = zp.T @ yp
+    got = np.asarray(ball_ls_action(jnp.asarray(A[None], jnp.float32),
+                                    jnp.asarray(b[None], jnp.float32)))[0]
+    want = np.asarray(ball_ls_action(jnp.asarray(A[None]),
+                                     jnp.asarray(b[None])))[0]
     # Underdetermined prefixes (t < d) have non-unique minimizers, so
     # compare OBJECTIVES; the full-rank case must match vectorwise.
-    obj_g = 0.5 * float(np.sum((zp @ got - yp) ** 2))
-    obj_w = 0.5 * float(np.sum((zp @ want - yp) ** 2))
-    assert obj_g <= obj_w + 1e-6
+    assert _obj(zp, yp, got) <= _obj(zp, yp, want) + 1e-5
     if t >= 8:
         np.testing.assert_allclose(got, want, atol=2e-5)
     assert np.linalg.norm(got) <= 1.0 + 1e-6
-    # ... and it still beats SLSQP on the f32-rounded problem.
-    best = _slsqp(zp.astype(np.float64), yp.astype(np.float64), seed=t)
+    best = _slsqp(zp, yp, seed=t)
     assert _obj(zp, yp, got) <= best.fun + 1e-4
 
 
-def test_trs_kernel_batch_roundtrip():
-    """pack_stats/unpack_x preserve order across a multi-tile batch."""
-    from online_convex_optimization_tpu.ops.pallas_trs import (
-        ball_ls_action_pallas)
+def test_ball_ls_batch_matches_per_system():
+    """The batched solve equals solving each system alone (no cross-talk
+    across a ragged multi-system batch)."""
     rng = np.random.default_rng(3)
-    N, d = 2100, 5                     # > 2 lane tiles, ragged padding
+    N, d = 257, 5
     M = rng.normal(size=(N, d, d)).astype(np.float32)
     A = jnp.asarray(M @ M.transpose(0, 2, 1))
     b = jnp.asarray(rng.normal(size=(N, d)).astype(np.float32))
-    got = np.asarray(ball_ls_action_pallas(A, b, interpret=True))
-    want = np.asarray(ball_ls_action(A, b))
-    np.testing.assert_allclose(got, want, atol=2e-5)
+    got = np.asarray(ball_ls_action(A, b))
+    for i in (0, 100, 256):
+        one = np.asarray(ball_ls_action(A[i:i + 1], b[i:i + 1]))[0]
+        np.testing.assert_allclose(got[i], one, atol=1e-6)
+    assert (np.linalg.norm(got, axis=-1) <= 1.0 + 1e-5).all()
 
 
-def test_fused_quadratic_game_kernel_matches_f64_truth():
-    """The fully fused quadratic game kernel (running statistics in
-    registers, per-round trust-region solve in-kernel, no Gram stack)
-    tracks the f64 ground truth within the inherent f32 trajectory noise
-    of ill-conditioned early prefixes — as tightly as the XLA f32 path."""
-    from online_convex_optimization_tpu.ops.pallas_game import (
-        pack_sequences, unpack_result)
-    from online_convex_optimization_tpu.ops.pallas_trs import (
-        quadratic_regrets_packed)
-
+def test_quadratic_game_f32_tracks_f64_truth():
+    """The f32 XLA quadratic game (the device path) tracks the f64 ground
+    truth within the inherent f32 trajectory noise of ill-conditioned
+    early prefixes."""
     rng = np.random.default_rng(0)
     B, T, d = 64, 48, 5
     z = rng.normal(size=(B, T, d)).astype(np.float32)
     z /= np.maximum(1.0, np.linalg.norm(z, axis=-1, keepdims=True))
     y = (z @ (np.ones(d) / np.sqrt(d))
          + 0.2 * rng.normal(size=(B, T))).astype(np.float32)
-    zp, yp, _ = pack_sequences(jnp.asarray(z, jnp.float32),
-                               jnp.asarray(y, jnp.float32))
-    kern = np.asarray(unpack_result(
-        quadratic_regrets_packed(zp, yp, interpret=True), B))
+    got = np.asarray(simulate_quadratic_batch(z, y, 1, 1.0).regret)
     truth = np.asarray(simulate_quadratic_batch(
         z.astype(np.float64), y.astype(np.float64), 1, 1.0).regret)
-    # Measured on this seed: kernel 0.016 vs f64, XLA-f32 0.025 vs f64.
-    assert np.abs(kern - truth).max() < 0.05
-    assert abs(kern.mean() - truth.mean()) < 2e-3
+    assert np.abs(got - truth).max() < 0.05
+    assert abs(got.mean() - truth.mean()) < 2e-3
 
 
-@pytest.mark.requires_tpu
-def test_trs_kernel_on_chip_matches_xla():
-    """Real-TPU trust-region kernel vs the XLA bisection (objectives on
-    singular systems, vectors on full-rank)."""
-    from online_convex_optimization_tpu.ops.pallas_trs import (
-        ball_ls_action_pallas)
-    rng = np.random.default_rng(9)
-    N, d = 1024, 5
-    M = rng.normal(size=(N, d, d)).astype(np.float32)
-    A = jnp.asarray(M @ M.transpose(0, 2, 1))       # full rank
-    b = jnp.asarray(rng.normal(size=(N, d)).astype(np.float32))
-    got = np.asarray(ball_ls_action_pallas(A, b))
-    want = np.asarray(ball_ls_action(A, b))
-    np.testing.assert_allclose(got, want, atol=5e-5)
-    assert (np.linalg.norm(got, axis=-1) <= 1.0 + 1e-5).all()
-
-
-@pytest.mark.requires_tpu
-def test_fused_quadratic_game_on_chip():
-    """The fused quadratic game on the real chip: RunResult invariants and
-    agreement with the interpret-mode kernel."""
-    from online_convex_optimization_tpu.ops.pallas_game import (
-        pack_sequences, unpack_result)
-    from online_convex_optimization_tpu.ops.pallas_trs import (
-        quadratic_regrets_packed)
+@pytest.mark.gpu
+def test_quadratic_game_on_gpu_matches_f64():
+    """The quadratic game on the GPU in f32: RunResult invariants and
+    agreement with the f64 truth."""
     rng = np.random.default_rng(2)
     B, T, d = 1024, 128, 5
     z = rng.normal(size=(B, T, d)).astype(np.float32)
@@ -246,10 +212,9 @@ def test_fused_quadratic_game_on_chip():
         reg + np.asarray(res.comp_loss), atol=1e-3)
     assert (np.linalg.norm(np.asarray(res.x_last), axis=-1)
             <= 1.0 + 1e-5).all()
-    zp, yp, _ = pack_sequences(jnp.asarray(z), jnp.asarray(y))
-    interp = np.asarray(unpack_result(
-        quadratic_regrets_packed(zp, yp, interpret=True), B))
-    np.testing.assert_allclose(reg, interp, atol=5e-3)
+    truth = np.asarray(simulate_quadratic_batch(
+        z.astype(np.float64), y.astype(np.float64), 1, 1.0).regret)
+    assert np.abs(reg - truth).max() < 0.05
 
 
 def test_quadratic_study_end_to_end(tmp_path):
@@ -257,7 +222,7 @@ def test_quadratic_study_end_to_end(tmp_path):
     study runs end-to-end, writes the JSON artifact + figure, and the
     exact-FTL curve sits below FTRL (fast/log-T regime on the
     well-conditioned regression stream)."""
-    from online_convex_optimization_tpu.experiments.quadratic_study import (
+    from online_convex_optimization.experiments.quadratic_study import (
         QuadraticConfig, run_study)
 
     cfg = QuadraticConfig(t_min=100, t_max=300, t_step=100, runs=2,

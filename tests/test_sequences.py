@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from online_convex_optimization_tpu.data.rng import rng_stream, run_seed_schedule
-from online_convex_optimization_tpu.data.sequences import (
+from online_convex_optimization.data.rng import rng_stream, run_seed_schedule
+from online_convex_optimization.data.sequences import (
     CASES,
     REPLICATES_BY_TITLE,
     RUNS_BY_TITLE,

@@ -11,12 +11,12 @@ import numpy as np
 import pytest
 from scipy.optimize import minimize
 
-from online_convex_optimization_tpu.models.exact_ftl import ExactFTL
-from online_convex_optimization_tpu.models.polish import (
+from online_convex_optimization.models.exact_ftl import ExactFTL
+from online_convex_optimization.models.polish import (
     objective,
     polish_solution,
 )
-from online_convex_optimization_tpu.models.ssn import (
+from online_convex_optimization.models.ssn import (
     ssn_all_prefixes,
     ssn_full,
 )
@@ -103,7 +103,7 @@ def test_ssn_contract_data_sanity():
     the data regime)."""
     import jax.numpy as jnp
 
-    from online_convex_optimization_tpu.models.linear_regime import (
+    from online_convex_optimization.models.linear_regime import (
         certified_prefix_actions)
     rng = np.random.default_rng(4)
     z = rng.normal(size=(30, 5))
@@ -123,8 +123,8 @@ def test_ssn_contract_data_sanity():
 def test_evaluate_stream_exact_ssn_matches_xla():
     """solver='ssn' (semismooth-Newton bands + polish) reproduces the
     ADMM-band statistics on a random contract family."""
-    from online_convex_optimization_tpu.data.sequences import CASES
-    from online_convex_optimization_tpu.experiments.evaluate import (
+    from online_convex_optimization.data.sequences import CASES
+    from online_convex_optimization.experiments.evaluate import (
         evaluate_stream_exact)
 
     builder = dict(CASES)["Random i.i.d. (separable)"]
@@ -144,9 +144,9 @@ def test_ssn_fuzz_matches_admm_after_polish(seed):
     and the polish can lose ~3e-4): post-polish parity with the ADMM."""
     import jax.numpy as jnp
 
-    from online_convex_optimization_tpu.models.exact_ftl import (
+    from online_convex_optimization.models.exact_ftl import (
         _admm_all_prefixes)
-    from online_convex_optimization_tpu.models.polish import (
+    from online_convex_optimization.models.polish import (
         polish_prefix_actions)
 
     rng = np.random.default_rng(seed)
@@ -233,8 +233,8 @@ def test_evaluate_stream_exact_auto_routes_ooc_to_ssn():
     covered by the ssn fuzz tests.)  In-contract degenerate cells keep
     the ADMM (bitwise-pinned committed artifacts) — covered by
     test_linear_regime's auto-vs-xla case."""
-    import online_convex_optimization_tpu.models.ssn as ssn_mod
-    from online_convex_optimization_tpu.experiments import evaluate as ev
+    import online_convex_optimization.models.ssn as ssn_mod
+    from online_convex_optimization.experiments import evaluate as ev
 
     def builder(run_seed=0):
         def sampler(T, rep=0):
@@ -277,8 +277,8 @@ def test_auto_routes_ooc_to_ssn_without_x64():
     (scripts/ssn_onchip_probe.py, BENCH_DETAILS ssn_f32_*)."""
     import jax
 
-    import online_convex_optimization_tpu.models.ssn as ssn_mod
-    from online_convex_optimization_tpu.experiments import evaluate as ev
+    import online_convex_optimization.models.ssn as ssn_mod
+    from online_convex_optimization.experiments import evaluate as ev
 
     def builder(run_seed=0):
         def sampler(T, rep=0):
@@ -336,7 +336,7 @@ def test_box_newton_step_matches_reference_qp():
     import jax.numpy as jnp
     from scipy.optimize import minimize
 
-    from online_convex_optimization_tpu.models.ssn import _box_newton_step
+    from online_convex_optimization.models.ssn import _box_newton_step
 
     rng = np.random.default_rng(11)
     d, N = 5, 64
@@ -369,7 +369,7 @@ def test_ssn_linf_matches_lp_objectives():
 
     if not jax.config.jax_enable_x64:
         pytest.skip("linf SSN is x64-only")
-    from online_convex_optimization_tpu.models.ssn import ssn_all_prefixes
+    from online_convex_optimization.models.ssn import ssn_all_prefixes
 
     rng = np.random.default_rng(3)
     T, d = 40, 5
@@ -400,7 +400,7 @@ def test_exact_ftl_ssn_linf_end_to_end():
 
     if not jax.config.jax_enable_x64:
         pytest.skip("linf SSN is x64-only")
-    from online_convex_optimization_tpu.models.exact_ftl import ExactFTL
+    from online_convex_optimization.models.exact_ftl import ExactFTL
 
     rng = np.random.default_rng(5)
     T, d = 28, 5
@@ -424,7 +424,7 @@ def test_exact_ftl_ssn_linf_end_to_end():
 def test_ssn_l1_norm_raises():
     import jax.numpy as jnp
 
-    from online_convex_optimization_tpu.models.ssn import ssn_all_prefixes
+    from online_convex_optimization.models.ssn import ssn_all_prefixes
 
     with pytest.raises(NotImplementedError):
         ssn_all_prefixes(jnp.zeros((4, 5)), jnp.zeros(4), norm="l1")

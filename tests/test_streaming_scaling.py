@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from online_convex_optimization_tpu.models.linear import simulate_linear_batch
-from online_convex_optimization_tpu.models.streaming import StreamingGame
-from online_convex_optimization_tpu.parallel.scaling import measure_scaling
+from online_convex_optimization.models.linear import simulate_linear_batch
+from online_convex_optimization.models.streaming import StreamingGame
+from online_convex_optimization.parallel.scaling import measure_scaling
 
 
 def _batch(B=3, T=120, seed=0):
@@ -60,11 +60,11 @@ def test_streaming_checkpoint_resume():
                                np.asarray(want.regret), atol=1e-9)
 
 
-def test_streaming_resume_equals_uninterrupted_T1e5():
+def test_streaming_resume_equals_uninterrupted_T1e5(tmp_path):
     """VERDICT round-1 item 8: a T >= 1e5 run checkpointed mid-stream via
     utils/checkpointing and resumed in a fresh process-equivalent game
     matches the uninterrupted run exactly."""
-    from online_convex_optimization_tpu.utils.checkpointing import (
+    from online_convex_optimization.utils.checkpointing import (
         load_pytree,
         save_pytree,
     )
@@ -86,10 +86,10 @@ def test_streaming_resume_equals_uninterrupted_T1e5():
     g1 = StreamingGame(B=B, d=d, alg_flag=0, eta0=math.sqrt(2))
     for i in range(n_chunks // 2):
         g1.feed(*chunk(i))
-    save_pytree("/tmp/test_stream_carry.npz", g1.carry_state())
+    save_pytree(str(tmp_path / "carry.npz"), g1.carry_state())
 
     g2 = StreamingGame(B=B, d=d, alg_flag=0, eta0=math.sqrt(2))
-    g2.resume(load_pytree("/tmp/test_stream_carry.npz", g2.carry_state()))
+    g2.resume(load_pytree(str(tmp_path / "carry.npz"), g2.carry_state()))
     for i in range(n_chunks // 2, n_chunks):
         g2.feed(*chunk(i))
 
@@ -120,7 +120,7 @@ def _contract_batch(B, T, d=5, seed=0):
 def test_streaming_kernel_matches_scan(alg_flag):
     """Kernel streaming (carry-in/carry-out Pallas chunks, replay-free
     identity comparator) == batched scan regrets."""
-    from online_convex_optimization_tpu.models.streaming import (
+    from online_convex_optimization.models.streaming import (
         StreamingKernelGame)
     B, T, d = 64, 96, 5
     z, y = _contract_batch(B, T, d, seed=21)
@@ -140,7 +140,7 @@ def test_streaming_kernel_matches_scan(alg_flag):
 
 def test_streaming_kernel_checkpoint_resume():
     """Serialize the O(B d) carry mid-stream; resumed == uninterrupted."""
-    from online_convex_optimization_tpu.models.streaming import (
+    from online_convex_optimization.models.streaming import (
         StreamingKernelGame)
     B, T, d = 64, 128, 5
     z, y = _contract_batch(B, T, d, seed=22)
@@ -167,7 +167,7 @@ def test_streaming_kernel_checkpoint_resume():
 def test_streaming_kernel_result_x_last_and_validation():
     """result().x_last is the final FTL comparator action (scan-path
     semantics); validate=True rejects contract-violating chunks."""
-    from online_convex_optimization_tpu.models.streaming import (
+    from online_convex_optimization.models.streaming import (
         StreamingGame, StreamingKernelGame)
     B, T, d = 64, 64, 5
     z, y = _contract_batch(B, T, d, seed=23)
@@ -192,7 +192,7 @@ def test_streaming_kernel_result_x_last_and_validation():
 def test_streaming_kernel_d8_odd_chunks():
     """Generality: d=8 state and non-power-of-two chunk lengths (ct falls
     back to 1 when the chunk length is odd) still match the scan."""
-    from online_convex_optimization_tpu.models.streaming import (
+    from online_convex_optimization.models.streaming import (
         StreamingKernelGame)
     B, T, d = 64, 70, 8
     z, y = _contract_batch(B, T, d, seed=31)
@@ -208,9 +208,9 @@ def test_streaming_kernel_d8_odd_chunks():
 
 def test_streaming_kernel_feed_many_matches_sequential():
     """One-dispatch stacked feeding == chunk-by-chunk feeding exactly."""
-    from online_convex_optimization_tpu.models.streaming import (
+    from online_convex_optimization.models.streaming import (
         StreamingKernelGame)
-    from online_convex_optimization_tpu.ops.pallas_game import (
+    from online_convex_optimization.ops.pallas_game import (
         pack_time_major)
     B, T, d, CT = 64, 128, 5, 32
     z, y = _contract_batch(B, T, d, seed=41)
@@ -233,7 +233,7 @@ def test_streaming_kernel_feed_many_matches_sequential():
 def test_streaming_kernel_bf16_matches_scan():
     """bf16 chunk storage (the T=1M bench path): results match the scan on
     the bf16-rounded inputs."""
-    from online_convex_optimization_tpu.models.streaming import (
+    from online_convex_optimization.models.streaming import (
         StreamingKernelGame)
     B, T, d = 64, 64, 5
     z, y = _contract_batch(B, T, d, seed=51)

@@ -7,22 +7,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from online_convex_optimization_tpu.data.device import (
+from online_convex_optimization.data.device import (
     random_game_batch,
     random_packed_batch,
     separable_stream_batch,
     shard_keys,
 )
-from online_convex_optimization_tpu.models.linear import simulate_linear_batch
-from online_convex_optimization_tpu.models.sweep_api import (
+from online_convex_optimization.models.linear import simulate_linear_batch
+from online_convex_optimization.models.sweep_api import (
     ftrl_eta_sweep,
     smart_threshold_sweep,
 )
-from online_convex_optimization_tpu.testing.golden import (
+from online_convex_optimization.testing.golden import (
     golden_simulate_alg,
     golden_simulate_smart,
 )
-from online_convex_optimization_tpu.utils.debug import (
+from online_convex_optimization.utils.debug import (
     drop_nonfinite_stats,
     finite_or_sentinel,
 )
@@ -88,8 +88,13 @@ def test_device_separable_stream_labels():
 
 
 def test_device_packed_batch_shape():
-    z, y = random_packed_batch(jax.random.key(2), T=64, lane_batch=256)
-    assert z.shape == (64, 5, 8, 256) and y.shape == (64, 8, 256)
+    z, y = random_packed_batch(jax.random.key(2), T=64, B=256)
+    assert z.shape == (64, 5, 256) and y.shape == (64, 256)
+    assert float(np.max(np.sum(np.asarray(z) ** 2, axis=1))) <= 1.0
+    z8, y8 = random_packed_batch(jax.random.key(2), T=8, B=128,
+                                 dtype=jnp.bfloat16, y_dtype=jnp.int8)
+    assert z8.dtype == jnp.bfloat16 and y8.dtype == jnp.int8
+    assert set(np.unique(np.asarray(y8)).tolist()) <= {-1, 1}
     keys = shard_keys(jax.random.key(3), 4)
     assert keys.shape[0] == 4
 
@@ -108,7 +113,7 @@ def test_eta_sweep_kernel_route_matches_scan_route():
     lengths routed through tail masking."""
     import numpy as np
 
-    from online_convex_optimization_tpu.models.sweep_api import ftrl_eta_sweep
+    from online_convex_optimization.models.sweep_api import ftrl_eta_sweep
 
     rng = np.random.default_rng(8)
     B, T = 128, 48

@@ -6,15 +6,15 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from online_convex_optimization_tpu.utils.checkpointing import (
+from online_convex_optimization.utils.checkpointing import (
     load_pytree,
     save_pytree,
 )
-from online_convex_optimization_tpu.utils.logging_utils import (
+from online_convex_optimization.utils.logging_utils import (
     get_logger,
     log_metrics,
 )
-from online_convex_optimization_tpu.utils.profiling import measure
+from online_convex_optimization.utils.profiling import measure
 
 
 def test_npz_pytree_roundtrip(tmp_path):
